@@ -4,7 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gpuraytracer_tpu.geometry import analytic
+from gpuraytracer.geometry import analytic
 
 TMAX = 10000.0
 

@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gpuraytracer_tpu.core import camera as cam
+from gpuraytracer.core import camera as cam
 
 
 def test_look_at_lh_maps_eye_to_origin():

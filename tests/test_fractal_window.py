@@ -2,17 +2,17 @@
 
 Extension primitives are DEFINED clipped to their instance AABB: the
 sphere-trace window is [max(entry, 0), min(exit, RayTCurrent)]
-(accel/traverse.py, kernels/scene_kernel.py). Reference primitives keep
+(accel/traverse.py, kernels/sdf_march.py). Reference primitives keep
 march-from-zero parity and are untouched (pinned by the golden suite).
 """
 
 import jax.numpy as jnp
 import numpy as np
 
-from gpuraytracer_tpu.accel import traverse
-from gpuraytracer_tpu.core.types import IntersectorKind
-from gpuraytracer_tpu.geometry.fractal import ExtendedSignedDistancePrimitive
-from gpuraytracer_tpu.models.builder import InstanceSpec, Material, SceneBuilder
+from gpuraytracer.accel import traverse
+from gpuraytracer.core.types import IntersectorKind
+from gpuraytracer.geometry.fractal import ExtendedSignedDistancePrimitive
+from gpuraytracer.models.builder import InstanceSpec, Material, SceneBuilder
 
 
 def _bulb_scene():

@@ -13,8 +13,8 @@ import os
 import numpy as np
 import pytest
 
-from gpuraytracer_tpu.models import builtin
-from gpuraytracer_tpu.render import trace
+from gpuraytracer.models import builtin
+from gpuraytracer.render import trace
 
 GOLDEN_PATH = os.path.join(os.path.dirname(__file__), "golden_builtin_96x54_t0p7.npz")
 W, H = 96, 54

@@ -33,14 +33,12 @@ EXACT_ENV = {
 }
 
 _RENDER_SRC = """
-import jax, os
-jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.abspath(os.environ["GPURT_TEST_CACHE"]))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+import os
 import numpy as np
-from gpuraytracer_tpu.models import builtin
-from gpuraytracer_tpu.render import trace
+from gpuraytracer.utils.compile_cache import setup_compile_cache
+setup_compile_cache()
+from gpuraytracer.models import builtin
+from gpuraytracer.render import trace
 W, H = 96, 54
 scene = builtin.build_scene(aspect=W/H, elapsed_time=0.7)
 img = np.asarray(trace.make_renderer(scene.layout, W, H)(scene.arrays))
@@ -55,7 +53,6 @@ def test_exact_knobs_match_exact_golden(tmp_path):
     env.update(EXACT_ENV)
     env["JAX_PLATFORMS"] = "cpu"
     env["GPURT_TEST_OUT"] = out
-    env["GPURT_TEST_CACHE"] = os.path.join(HERE, "..", ".jax_cache")
     proc = subprocess.run(
         [sys.executable, "-c", _RENDER_SRC],
         env=env, capture_output=True, text=True, timeout=1800,

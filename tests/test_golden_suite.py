@@ -11,8 +11,8 @@ import os
 import numpy as np
 import pytest
 
-from gpuraytracer_tpu.models.scenes import BENCH_CONFIGS
-from gpuraytracer_tpu.render import trace
+from gpuraytracer.models.scenes import BENCH_CONFIGS
+from gpuraytracer.render import trace
 
 GOLDEN_W, GOLDEN_H = 96, 54
 GOLDEN_T = 0.7

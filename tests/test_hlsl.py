@@ -4,7 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gpuraytracer_tpu.core import hlsl
+from gpuraytracer.core import hlsl
 
 
 def test_fmod_sign_follows_dividend():

@@ -3,17 +3,15 @@
 The reference's shader table points many records at shared root constants
 (Renderer.cpp:201-250 defines ~11 materials reused across instances);
 SceneBuilder mirrors that by deduping identical SHADING materials into a
-unique table plus a per-geometry slot map, so the kernels' material select
-chains scale with UNIQUE materials — and the fused frame kernel's
-16-material cap caps unique materials, not instances (the 16-instance
-analytic grid has 3 + plane).
+unique table plus a per-geometry slot map, so the material select chains
+scale with UNIQUE materials, not instances (the 16-instance analytic grid
+has 3 + plane).
 """
 
 import numpy as np
 
-from gpuraytracer_tpu.kernels import frame_kernel
-from gpuraytracer_tpu.models.scenes import get_config
-from gpuraytracer_tpu.render import trace
+from gpuraytracer.models.scenes import get_config
+from gpuraytracer.render import trace
 
 
 def _grid_scene():
@@ -30,18 +28,6 @@ def test_grid_material_table_dedups():
     assert max(lay.material_ids) == 3
     # step_scale is a per-GEOMETRY march parameter — never deduped.
     assert scene.arrays.materials.step_scale.shape[0] == 17
-
-
-def test_grid_layout_fused_eligible():
-    scene = _grid_scene()
-    # The unique-material count clears the fused kernel's cap (the
-    # per-instance count, 17, did not — the round-2 grid ran pass-based).
-    from gpuraytracer_tpu.kernels import megakernel
-
-    n = scene.arrays.materials.albedo.shape[0]
-    assert n <= 16
-    if megakernel.pallas_available():
-        assert frame_kernel.fused_eligible(scene)
 
 
 def test_gather_materials_mapping_matches_expansion():

@@ -7,7 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gpuraytracer_tpu.geometry import metaballs
+from gpuraytracer.geometry import metaballs
 
 TMAX = 10000.0
 

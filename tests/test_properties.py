@@ -14,10 +14,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gpuraytracer_tpu.accel import traverse
-from gpuraytracer_tpu.accel.instances import Scene
-from gpuraytracer_tpu.core.types import RAY_TMAX, RAY_TMIN
-from gpuraytracer_tpu.models import builtin
+from gpuraytracer.accel import traverse
+from gpuraytracer.accel.instances import Scene
+from gpuraytracer.core.types import RAY_TMAX, RAY_TMIN
+from gpuraytracer.models import builtin
 
 N = 2048
 

@@ -11,8 +11,8 @@ import gc
 
 import numpy as np
 
-from gpuraytracer_tpu.render.renderer import Renderer
-from gpuraytracer_tpu.utils.event import Viewport
+from gpuraytracer.render.renderer import Renderer
+from gpuraytracer.utils.event import Viewport
 
 
 def test_resize_rebuilds_and_matches_fresh_build():

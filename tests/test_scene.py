@@ -4,8 +4,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gpuraytracer_tpu.core.types import CHROMIUM_REFLECTANCE, TOTAL_PRIMITIVE_COUNT
-from gpuraytracer_tpu.models import builtin
+from gpuraytracer.core.types import CHROMIUM_REFLECTANCE, TOTAL_PRIMITIVE_COUNT
+from gpuraytracer.models import builtin
 
 
 def test_grid_base_position():

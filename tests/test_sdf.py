@@ -7,7 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gpuraytracer_tpu.geometry import sdf
+from gpuraytracer.geometry import sdf
 
 TMAX = 10000.0
 
@@ -251,7 +251,7 @@ class TestOverRelaxedMarch:
         # fields underestimate distance, so the disjoint-spheres test is
         # conservative; hit sets must agree except at knife-edge
         # threshold crossings.
-        from gpuraytracer_tpu.geometry.fractal import (
+        from gpuraytracer.geometry.fractal import (
             ExtendedSignedDistancePrimitive,
         )
 

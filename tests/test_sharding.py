@@ -6,10 +6,10 @@ import jax
 import numpy as np
 import pytest
 
-from gpuraytracer_tpu.models import builtin
-from gpuraytracer_tpu.parallel import device as device_mod
-from gpuraytracer_tpu.parallel import pipeline, sharding
-from gpuraytracer_tpu.render import trace
+from gpuraytracer.models import builtin
+from gpuraytracer.parallel import device as device_mod
+from gpuraytracer.parallel import pipeline, sharding
+from gpuraytracer.render import trace
 
 W, H = 64, 32
 
@@ -52,92 +52,6 @@ def test_sharded_stats_psum(scene):
     assert float(mean_radiance) == pytest.approx(float(expected), rel=1e-5)
 
 
-def test_sharded_fused_kernel_interpret(scene):
-    """BOTH Pallas frame kernels (budget-capped main + dense requeue)
-    under shard_map on the 8-device mesh, interpret mode: the fused
-    multi-chip route must agree with the single-chip fused render."""
-    from gpuraytracer_tpu.kernels import frame_kernel
-
-    mesh = sharding.make_mesh()
-    sharded = sharding.make_sharded_renderer(
-        scene.layout, W, H, mesh, use_fused=True, interpret=True
-    )
-    img_sharded = sharding.gather_image(sharded(scene.arrays))
-
-    smem_args, kw = frame_kernel.pack_frame_params(scene)
-    img_single = np.asarray(
-        frame_kernel.render_frame_compact(
-            *smem_args, width=W, height=H, max_depth=3,
-            cull_backface=True, interpret=True, **kw,
-        )
-    )
-    # Same tile boundaries, same per-lane kernel math; only XLA's fusion
-    # context differs between the band and full programs, which shifts
-    # march-threshold crossings at a handful of silhouette pixels (the
-    # test_fused_matches_wavefront flip budget). Everything else must
-    # stay inside the 1e-3 radiance bar with a high exact-agreement
-    # floor.
-    diff = np.abs(img_sharded - img_single).max(axis=-1)
-    flipped = diff > 1e-3
-    assert flipped.mean() < 0.02, f"{flipped.sum()} pixels flipped"
-    exact = (img_sharded == img_single).all(axis=-1).mean()
-    assert exact > 0.8
-
-
-def test_sharded_scene_kernel_interpret(scene):
-    """scene_closest_tiles (the pass-based Pallas traversal) under
-    shard_map: sharded rows == unsharded rows, exercising the vma
-    declarations that only matter inside shard_map."""
-    import jax.numpy as jnp
-    from jax.sharding import PartitionSpec as P
-
-    from gpuraytracer_tpu.core import camera as cam
-    from gpuraytracer_tpu.kernels import scene_kernel
-
-    mesh = sharding.make_mesh()
-    px, py = cam.pixel_grid(W, H)
-    o, d = cam.generate_camera_rays(
-        px, py, W, H,
-        scene.arrays.constants.camera_position,
-        scene.arrays.constants.projection_to_world,
-    )
-    packed = scene_kernel.pack_params(scene.arrays, 0.3)
-    b2l_rows, l2b_rot, step_scales, aabbs, mb_params = packed
-    layout = scene.layout
-    kw = dict(
-        geoms=tuple(
-            (int(k), int(p)) for k, p in zip(layout.kinds, layout.prim_types)
-        ),
-        clusters=layout.clusters,
-        order=layout.traversal_order,
-        interpret=True,
-    )
-    ob = o - scene.arrays.blas_offset
-    active = jnp.ones((H, W), bool)
-    t0 = jnp.full((H, W), 1e4, jnp.float32)
-
-    def local(ob_, d_, active_, t0_):
-        return scene_kernel.scene_closest_tiles(
-            ob_, d_, active_, t0_, b2l_rows, l2b_rot, step_scales, aabbs,
-            mb_params, **kw,
-        )
-
-    sharded = sharding.shard_map(
-        local,
-        mesh=mesh,
-        in_specs=(P("x", None, None), P("x", None, None), P("x", None),
-                  P("x", None)),
-        out_specs=(P("x", None), P("x", None, None), P("x", None)),
-        # interpret-mode Pallas can't satisfy the vma checker (see
-        # parallel/sharding.py); numerics are still validated exactly.
-        check_vma=False,
-    )
-    t_s, n_s, g_s = jax.jit(sharded)(ob, d, active, t0)
-    t_1, n_1, g_1 = local(ob, d, active, t0)
-    np.testing.assert_array_equal(np.asarray(g_s), np.asarray(g_1))
-    np.testing.assert_allclose(np.asarray(t_s), np.asarray(t_1), atol=1e-3)
-
-
 def test_height_must_divide():
     mesh = sharding.make_mesh()
     with pytest.raises(ValueError):
@@ -148,6 +62,34 @@ def test_device_pick_cpu_software_fallback():
     info = device_mod.pick_device("cpu")
     assert info.platform == "cpu"
     assert info.is_software
+
+
+def test_device_auto_prefers_gpu(monkeypatch):
+    class FakeGpu:
+        id = 0
+        device_kind = "NVIDIA H100 80GB HBM3"
+
+    real = jax.devices
+
+    def devices(name=None):
+        return [FakeGpu()] if name == "gpu" else real(name)
+
+    monkeypatch.setattr(jax, "devices", devices)
+    info = device_mod.pick_device("auto")
+    assert info.platform == "gpu"
+    assert not info.is_software
+    assert "H100" in info.description
+
+
+def test_device_auto_falls_back_to_cpu():
+    # This host has no GPU: "auto" lands on the software device.
+    assert device_mod.available_platforms() == ["cpu"]
+    assert device_mod.pick_device("auto").is_software
+
+
+def test_device_explicit_gpu_without_one_raises():
+    with pytest.raises(RuntimeError, match="platform='gpu'"):
+        device_mod.pick_device("gpu")
 
 
 def test_frame_pipeline_bounds_depth():

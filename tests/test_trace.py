@@ -4,9 +4,9 @@ import jax
 import numpy as np
 import pytest
 
-from gpuraytracer_tpu.core.types import BACKGROUND_COLOR
-from gpuraytracer_tpu.models import builtin
-from gpuraytracer_tpu.render import trace
+from gpuraytracer.core.types import BACKGROUND_COLOR
+from gpuraytracer.models import builtin
+from gpuraytracer.render import trace
 
 W = H = 48
 

@@ -2,7 +2,7 @@
 
 The reference's triangle BLAS path is general (vertex/index buffers,
 u16 indices — Renderer.cpp:575-592, RaytracingShaderHelper.hlsli:56-86);
-these tests prove the TPU equivalent is too: the ground quad re-expressed
+these tests prove this equivalent is too: the ground quad re-expressed
 as a 2-triangle mesh matches the rect fast path exactly, closed-form
 single-triangle hits land where Möller–Trumbore says they must, the
 lax.scan (many-face) path agrees with the unrolled path, and a non-rect
@@ -13,10 +13,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gpuraytracer_tpu.accel import traverse
-from gpuraytracer_tpu.core.types import IntersectorKind
-from gpuraytracer_tpu.geometry import trimesh
-from gpuraytracer_tpu.models.builder import Material, SceneBuilder
+from gpuraytracer.accel import traverse
+from gpuraytracer.geometry import trimesh
+from gpuraytracer.models.builder import Material, SceneBuilder
 
 
 def _rand_rays(n, seed, span=30.0):
@@ -202,7 +201,7 @@ def test_mesh_instance_closest_hit(mesh_scene):
 
 
 def test_mesh_instance_renders(mesh_scene):
-    from gpuraytracer_tpu.render import trace
+    from gpuraytracer.render import trace
 
     img = trace.render_frame(mesh_scene, 64, 64)
     img = np.asarray(img)
@@ -225,194 +224,3 @@ def test_mesh_occludes_shadow(mesh_scene):
     d = jnp.asarray([[0.0, 1.0, 0.0]], dtype=jnp.float32)
     occ = traverse.any_hit(o, d, scene)
     assert bool(occ[0])
-
-
-# ---------------------------------------------------------------------------
-# Triangle meshes on the Pallas scene-kernel path (VERDICT round-2 item 5)
-# ---------------------------------------------------------------------------
-
-
-def test_mesh_scene_kernel_matches_xla(mesh_scene):
-    """The SMEM Möller–Trumbore branch of the Pallas scene kernel must
-    agree with the XLA trimesh path over a pixel wavefront (interpret
-    mode; both run the same face rows, so hits are bit-comparable)."""
-    from gpuraytracer_tpu.accel.traverse import pack_tri_rows, ray_to_blas
-    from gpuraytracer_tpu.core import camera as cam
-    from gpuraytracer_tpu.kernels import scene_kernel
-
-    scene = mesh_scene
-    W = H = 48
-    px, py = cam.pixel_grid(W, H)
-    o, d = cam.generate_camera_rays(
-        px, py, W, H,
-        scene.arrays.constants.camera_position,
-        scene.arrays.constants.projection_to_world,
-    )
-    o_b, d_b = ray_to_blas(o, d, scene.arrays.blas_offset)
-    params = scene_kernel.pack_params(scene.arrays, 0.0)
-    tri_rows, tri_offsets = pack_tri_rows(scene.arrays)
-    layout = scene.layout
-    active = jnp.ones((H, W), bool)
-    t0 = jnp.full((H, W), 1e4, jnp.float32)
-    geoms = tuple(
-        (int(k), int(p)) for k, p in zip(layout.kinds, layout.prim_types)
-    )
-    t_k, n_k, gid_k = scene_kernel.scene_closest_tiles(
-        o_b, d_b, active, t0, *params, tri_rows,
-        geoms=geoms, clusters=layout.clusters, order=layout.traversal_order,
-        tri_offsets=tri_offsets, interpret=True,
-    )
-    # XLA reference: per-instance dispatch through intersect_trimesh.
-    hit_ref = traverse.closest_hit(o, d, scene)
-    mesh_hit_ref = np.asarray(hit_ref.geometry_id) == 0
-    mesh_hit_k = np.asarray(gid_k) == 0
-    np.testing.assert_array_equal(mesh_hit_k, mesh_hit_ref)
-    np.testing.assert_allclose(
-        np.asarray(t_k)[mesh_hit_k], np.asarray(hit_ref.t)[mesh_hit_ref],
-        rtol=1e-6,
-    )
-    np.testing.assert_allclose(
-        np.asarray(n_k)[mesh_hit_k],
-        np.asarray(hit_ref.normal)[mesh_hit_ref], atol=1e-6,
-    )
-
-
-def test_mesh_fused_frame_kernel(mesh_scene):
-    """A mesh scene renders through the FUSED frame kernel (interpret):
-    the mesh's red albedo must appear, matching the wavefront render to
-    the radiance budget."""
-    from gpuraytracer_tpu.kernels import frame_kernel
-    from gpuraytracer_tpu.render import trace
-
-    scene = mesh_scene
-    W = H = 48
-    ref = np.asarray(trace.render_frame(scene, W, H))
-    smem_args, kw = frame_kernel.pack_frame_params(scene)
-    img = np.asarray(
-        frame_kernel.render_frame_tiles(
-            *smem_args, width=W, height=H, max_depth=3,
-            cull_backface=True, interpret=True, **kw,
-        )
-    )
-    diff = np.abs(img - ref).max(axis=-1)
-    flipped = diff > 1e-3
-    assert flipped.mean() < 0.02, f"{flipped.sum()} pixels flipped"
-    red_dom = (img[..., 0] > img[..., 1] + 0.1) & (img[..., 0] > img[..., 2] + 0.1)
-    assert red_dom.any()
-
-
-# ---------------------------------------------------------------------------
-# Streamed (> TRI_FACE_CAP faces) meshes + plane-less scenes through the
-# Pallas kernels (VERDICT r3 missing #4 / next #8)
-# ---------------------------------------------------------------------------
-
-
-def _heightfield(nx=16, nz=16, amp=0.3):
-    """(nx*nz*2)-face sine-heightfield grid over local [-1,1]^2."""
-    positions = []
-    for iz in range(nz + 1):
-        for ix in range(nx + 1):
-            x = 2.0 * ix / nx - 1.0
-            z = 2.0 * iz / nz - 1.0
-            y = amp * np.sin(2.5 * x) * np.cos(2.5 * z)
-            positions.append((x, y, z))
-    indices = []
-    for iz in range(nz):
-        for ix in range(nx):
-            a = iz * (nx + 1) + ix
-            b = a + 1
-            c = a + (nx + 1)
-            d = c + 1
-            # CCW seen from +y (matches the ground-quad winding).
-            indices.append([a, d, b])
-            indices.append([a, c, d])
-    return positions, indices
-
-
-@pytest.fixture(scope="module")
-def big_mesh_scene():
-    """512-face mesh-only scene with NO ground plane: exercises both the
-    streamed chunk-loop mesh path and plane-less fused eligibility."""
-    b = SceneBuilder().without_plane()
-    positions, indices = _heightfield()
-    b.add_mesh_instance(
-        positions, indices, Material((0.2, 0.3, 1.0, 1.0)),
-        aabb_min=(-1.2, -0.6, -1.2), aabb_max=(1.2, 0.6, 1.2),
-        scale=(1.0, 1.0, 1.0),
-    )
-    return b.build(aspect=1.0, elapsed_time=0.0)
-
-
-def test_streamed_mesh_scene_kernel_matches_xla(big_mesh_scene):
-    """The chunked fori_loop mesh path (count > TRI_FACE_CAP) must agree
-    with the XLA trimesh reference — identical Moller-Trumbore float math,
-    so hits are bit-comparable (interpret mode)."""
-    from gpuraytracer_tpu.accel.traverse import (
-        TRI_FACE_CAP, pack_tri_rows, ray_to_blas)
-    from gpuraytracer_tpu.core import camera as cam
-    from gpuraytracer_tpu.kernels import scene_kernel
-
-    scene = big_mesh_scene
-    tri_rows, tri_offsets = pack_tri_rows(scene.arrays)
-    assert tri_offsets[0][1] > TRI_FACE_CAP  # really streams
-    assert tri_offsets[0][1] % scene_kernel.TRI_STREAM_CHUNK == 0
-
-    W = H = 48
-    px, py = cam.pixel_grid(W, H)
-    o, d = cam.generate_camera_rays(
-        px, py, W, H,
-        scene.arrays.constants.camera_position,
-        scene.arrays.constants.projection_to_world,
-    )
-    o_b, d_b = ray_to_blas(o, d, scene.arrays.blas_offset)
-    params = scene_kernel.pack_params(scene.arrays, 0.0)
-    layout = scene.layout
-    geoms = tuple(
-        (int(k), int(p)) for k, p in zip(layout.kinds, layout.prim_types)
-    )
-    t_k, n_k, gid_k = scene_kernel.scene_closest_tiles(
-        o_b, d_b, jnp.ones((H, W), bool), jnp.full((H, W), 1e4, jnp.float32),
-        *params, tri_rows,
-        geoms=geoms, clusters=layout.clusters, order=layout.traversal_order,
-        tri_offsets=tri_offsets, interpret=True,
-    )
-    hit_ref = traverse.closest_hit(o, d, scene)
-    mesh_hit_ref = np.asarray(hit_ref.geometry_id) == 0
-    mesh_hit_k = np.asarray(gid_k) == 0
-    assert mesh_hit_ref.any(), "camera must see the heightfield"
-    np.testing.assert_array_equal(mesh_hit_k, mesh_hit_ref)
-    np.testing.assert_allclose(
-        np.asarray(t_k)[mesh_hit_k], np.asarray(hit_ref.t)[mesh_hit_ref],
-        rtol=1e-6,
-    )
-    np.testing.assert_allclose(
-        np.asarray(n_k)[mesh_hit_k],
-        np.asarray(hit_ref.normal)[mesh_hit_ref], atol=1e-6,
-    )
-
-
-def test_big_mesh_plane_less_fused_frame(big_mesh_scene):
-    """A 512-face plane-less mesh-only scene renders through the FUSED
-    frame kernel (interpret): fused eligibility no longer requires a
-    ground plane (pack_frame_params packs an impossible rect), and the
-    mesh streams through the chunk loop."""
-    from gpuraytracer_tpu.kernels import frame_kernel
-    from gpuraytracer_tpu.render import trace
-
-    scene = big_mesh_scene
-    assert not scene.layout.has_plane
-    W = H = 48
-    ref = np.asarray(trace.render_frame(scene, W, H))
-    smem_args, kw = frame_kernel.pack_frame_params(scene)
-    img = np.asarray(
-        frame_kernel.render_frame_tiles(
-            *smem_args, width=W, height=H, max_depth=3,
-            cull_backface=True, interpret=True, **kw,
-        )
-    )
-    assert np.isfinite(img).all()
-    diff = np.abs(img - ref).max(axis=-1)
-    flipped = diff > 1e-3
-    assert flipped.mean() < 0.02, f"{flipped.sum()} pixels flipped"
-    blue_dom = (img[..., 2] > img[..., 0] + 0.1)
-    assert blue_dom.any()

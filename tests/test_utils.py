@@ -6,14 +6,14 @@ import os
 import numpy as np
 import pytest
 
-from gpuraytracer_tpu.runtime import hostrt
-from gpuraytracer_tpu.utils import png as png_mod
-from gpuraytracer_tpu.utils.stats import (
+from gpuraytracer.runtime import hostrt
+from gpuraytracer.utils import png as png_mod
+from gpuraytracer.utils.stats import (
     FrameStats,
     mrays_per_second_from_dispatch_ms,
     mrays_per_second_from_fps,
 )
-from gpuraytracer_tpu.utils.timers import EmaTimer, StepTimer
+from gpuraytracer.utils.timers import EmaTimer, StepTimer
 
 
 def _rand_image(h=17, w=23, c=4):
@@ -129,7 +129,7 @@ class TestStats:
 
 class TestEvent:
     def test_attach_dispatch_detach(self):
-        from gpuraytracer_tpu.utils.event import Event
+        from gpuraytracer.utils.event import Event
 
         ev = Event()
         seen = []
@@ -141,7 +141,7 @@ class TestEvent:
         assert seen == [1]
 
     def test_weak_method_autocleanup(self):
-        from gpuraytracer_tpu.utils.event import Event
+        from gpuraytracer.utils.event import Event
 
         class Listener:
             def __init__(self):
@@ -163,7 +163,7 @@ class TestEvent:
         assert ev.listener_count == 0
 
     def test_viewport_resize_event(self):
-        from gpuraytracer_tpu.utils.event import Viewport
+        from gpuraytracer.utils.event import Viewport
 
         vp = Viewport(640, 360)
         sizes = []
@@ -172,3 +172,34 @@ class TestEvent:
         vp.resize(1280, 720)
         assert sizes == [(1280, 720)]
         assert vp.aspect_ratio == pytest.approx(16 / 9)
+
+
+class TestCompileCache:
+    def test_default_dir_is_fixed_in_checkout(self, monkeypatch):
+        import jax
+
+        from gpuraytracer.utils import compile_cache
+
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        path = compile_cache.setup_compile_cache()
+        assert path == os.path.join(compile_cache.CHECKOUT, ".jax_cache")
+        assert jax.config.jax_compilation_cache_dir == path
+        assert os.path.exists(os.path.join(compile_cache.CHECKOUT, "gpuraytracer"))
+
+    def test_env_dir_is_left_alone(self, tmp_path):
+        import subprocess
+        import sys
+
+        src = (
+            "import jax\n"
+            "from gpuraytracer.utils.compile_cache import setup_compile_cache\n"
+            "print(setup_compile_cache())\n"
+            "print(jax.config.jax_compilation_cache_dir)\n"
+        )
+        env = dict(os.environ, JAX_COMPILATION_CACHE_DIR=str(tmp_path))
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        out = subprocess.run(
+            [sys.executable, "-c", src], env=env, cwd=repo,
+            capture_output=True, text=True, check=True, timeout=120,
+        ).stdout.split()
+        assert out == [str(tmp_path), str(tmp_path)]

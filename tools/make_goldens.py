@@ -37,8 +37,8 @@ def main():
 
     import numpy as np
 
-    from gpuraytracer_tpu.models.scenes import BENCH_CONFIGS
-    from gpuraytracer_tpu.render import trace
+    from gpuraytracer.models.scenes import BENCH_CONFIGS
+    from gpuraytracer.render import trace
 
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "tests")
     for cfg in BENCH_CONFIGS:

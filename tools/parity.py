@@ -1,11 +1,11 @@
-"""Cross-backend radiance parity harness (VERDICT round-1 item 4).
+"""Cross-backend radiance parity harness.
 
-Renders the builtin scene at a real resolution on the current backend
-(TPU: both the Pallas scene-kernel path and the pure-XLA path) and
-compares against the CPU-backend reference render (the WARP analog and
-golden pinning target) pixel by pixel.
+Renders the builtin scene at a real resolution on the current backend and
+compares it pixel by pixel with the CPU-backend reference render (the WARP
+analog and golden pinning target). On a GPU the result is labelled by the
+route the SDF march takes there ("gpu_triton"); elsewhere by the backend.
 
-Metrics per path:
+Metrics per route:
   pct_within_1e3      fraction of pixels with max-RGBA |diff| <= 1e-3
   mean_abs            mean |diff|
   interior_pct_1e3    same fraction over NON-silhouette pixels (3x3
@@ -19,8 +19,9 @@ Metrics per path:
   stable_pct_1e3      fraction of NON-chaotic pixels within the budget —
                       the primary cross-backend accuracy bar
 
-Writes PARITY_r{N}.json at the repo root. The CPU reference is computed
-in a subprocess (the in-process backend is already initialized).
+The CPU reference and its three perturbed renders are computed in one
+child process with JAX_PLATFORMS=cpu (this process owns the accelerator),
+and cached under out/.
 
 Usage: python tools/parity.py [--width 640 --height 360] [--out PARITY.json]
 """
@@ -37,41 +38,73 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 T_ANIM = 0.7
+# Multi-directional chaos probe: the mask is the union of hypersensitive
+# sets over three ulp-scale camera perturbations (a pixel can be stable
+# along one direction yet knife-edge along another).
+PROBES = (1e-6, -1e-6, (1e-6, -1e-6, 1e-6))
 
-
-def _render_cpu_subprocess(width, height, path, cam_eps=0.0):
-    code = f"""
-import os
-os.environ["JAX_PLATFORMS"] = "cpu"
-import jax
-jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir", {os.path.join(REPO, ".jax_cache")!r})
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+_CPU_SRC = """
 import dataclasses
 import numpy as np
-from gpuraytracer_tpu.models import builtin
-from gpuraytracer_tpu.render import trace
-scene = builtin.build_scene(aspect={width}/{height}, elapsed_time={T_ANIM})
-arrays = scene.arrays
-if {cam_eps!r}:
-    cp = np.asarray(arrays.constants.camera_position)
-    eps = np.zeros_like(cp)
-    e = np.atleast_1d(np.asarray({cam_eps!r}, dtype=cp.dtype))
-    if e.size > 1:
-        eps[:3] += e
-    else:
-        eps += e[0]
-    c = dataclasses.replace(
-        arrays.constants,
-        camera_position=arrays.constants.camera_position + eps,
-    )
-    arrays = dataclasses.replace(arrays, constants=c)
-img = np.asarray(trace.render_frame(
-    type(scene)(scene.layout, arrays), {width}, {height}))
-np.save({path!r}, img)
-print("cpu reference done")
+from gpuraytracer.utils.compile_cache import setup_compile_cache
+setup_compile_cache()
+from gpuraytracer.models import builtin
+from gpuraytracer.render import trace
+W, H = {width}, {height}
+scene = builtin.build_scene(aspect=W / H, elapsed_time={t})
+render = trace.make_renderer(scene.layout, W, H)
+for path, eps in {jobs!r}:
+    arrays = scene.arrays
+    if eps is not None:
+        cp = np.asarray(arrays.constants.camera_position)
+        e = np.atleast_1d(np.asarray(eps, dtype=cp.dtype))
+        delta = np.zeros_like(cp)
+        if e.size > 1:
+            delta[:3] += e
+        else:
+            delta += e[0]
+        c = dataclasses.replace(
+            arrays.constants,
+            camera_position=arrays.constants.camera_position + delta)
+        arrays = dataclasses.replace(arrays, constants=c)
+    np.save(path, np.asarray(render(arrays)))
+    print("cpu reference ->", path, flush=True)
 """
-    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True)
+
+
+def reference_paths(width, height, out_dir=None):
+    out_dir = out_dir or os.path.join(REPO, "out")
+    ref = os.path.join(out_dir, f"parity_cpu_{width}x{height}.npy")
+    eps = [os.path.join(out_dir, f"parity_cpu_eps{i}_{width}x{height}.npy")
+           for i in range(len(PROBES))]
+    return ref, eps
+
+
+def start_cpu_references(width, height, out_dir=None):
+    """Start the child that renders the missing CPU references; returns the
+    Popen (None when every reference is cached)."""
+    ref, eps = reference_paths(width, height, out_dir)
+    jobs = [(p, e) for p, e in zip([ref] + eps, (None,) + PROBES)
+            if not os.path.exists(p)]
+    if not jobs:
+        return None
+    os.makedirs(os.path.dirname(ref), exist_ok=True)
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    src = _CPU_SRC.format(width=width, height=height, t=T_ANIM, jobs=jobs)
+    return subprocess.Popen([sys.executable, "-c", src], cwd=REPO, env=env)
+
+
+def load_references(width, height, out_dir=None):
+    """(CPU reference image, chaos mask)."""
+    import numpy as np
+
+    ref_path, eps_paths = reference_paths(width, height, out_dir)
+    ref = np.load(ref_path)
+    sens = None
+    for p in eps_paths:
+        m = sensitivity_mask(ref, np.load(p))
+        sens = m if sens is None else (sens | m)
+    return ref, sens
 
 
 def silhouette_mask(ref, thresh=0.05):
@@ -80,7 +113,6 @@ def silhouette_mask(ref, thresh=0.05):
     import numpy as np
 
     lum = ref[..., :3].max(axis=-1)
-    h, w = lum.shape
     lo = lum.copy()
     hi = lum.copy()
     for dy in (-1, 0, 1):
@@ -95,12 +127,11 @@ def sensitivity_mask(ref, ref_eps, thresh=1e-3):
     """True where the CPU render itself moves more than `thresh` under an
     ulp-scale camera perturbation (1e-6 on a ~10-unit eye position).
 
-    This replaces the blanket geometric silhouette write-off with a
-    MEASURED per-pixel chaos criterion: a pixel whose radiance flips under
-    a last-ulp input change (march-threshold crossings, crawl-lane shadow
-    booleans) cannot be expected to agree across backends whose fma/libm
-    rounding differs by exactly that much; every other pixel has no such
-    excuse and must meet the budget."""
+    A pixel whose radiance flips under a last-ulp input change
+    (march-threshold crossings, crawl-lane shadow booleans) cannot be
+    expected to agree across backends whose fma/libm rounding differs by
+    exactly that much; every other pixel has no such excuse and must meet
+    the budget."""
     import numpy as np
 
     return np.abs(ref_eps - ref).max(axis=-1) > thresh
@@ -113,26 +144,41 @@ def compare(img, ref, sens=None):
     edge = silhouette_mask(ref)
     interior = ~edge
     out = {
-        "pct_within_1e3": round(float((diff <= 1e-3).mean()) * 100, 3),
-        "mean_abs": float(f"{diff.mean():.3e}"),
-        "p99_abs": float(f"{np.quantile(diff, 0.99):.3e}"),
-        "interior_pct_1e3": round(
-            float((diff[interior] <= 1e-3).mean()) * 100, 3
-        ),
-        "interior_max_abs": float(f"{diff[interior].max():.3e}"),
-        "edge_fraction": round(float(edge.mean()) * 100, 2),
+        "pct_within_1e3": float((diff <= 1e-3).mean()) * 100,
+        "mean_abs": float(diff.mean()),
+        "p99_abs": float(np.quantile(diff, 0.99)),
+        "interior_pct_1e3": float((diff[interior] <= 1e-3).mean()) * 100,
+        "interior_max_abs": float(diff[interior].max()),
+        "edge_fraction": float(edge.mean()) * 100,
     }
     if sens is not None:
         stable = ~sens
-        out["sens_fraction"] = round(float(sens.mean()) * 100, 2)
-        out["stable_pct_1e3"] = round(
-            float((diff[stable] <= 1e-3).mean()) * 100, 3
-        )
-        out["stable_p999_abs"] = float(
-            f"{np.quantile(diff[stable], 0.999):.3e}"
-        )
-        out["stable_max_abs"] = float(f"{diff[stable].max():.3e}")
+        out["sens_fraction"] = float(sens.mean()) * 100
+        out["stable_pct_1e3"] = float((diff[stable] <= 1e-3).mean()) * 100
+        out["stable_p999_abs"] = float(np.quantile(diff[stable], 0.999))
+        out["stable_max_abs"] = float(diff[stable].max())
     return out
+
+
+def route() -> str:
+    """Label of the path this backend renders through."""
+    import jax
+
+    backend = jax.default_backend()
+    return "gpu_triton" if backend == "gpu" else backend
+
+
+def render_current(width, height):
+    """The builtin frame at T_ANIM on this process's default backend."""
+    import jax
+    import numpy as np
+
+    from gpuraytracer.models import builtin
+    from gpuraytracer.render import trace
+
+    scene = builtin.build_scene(aspect=width / height, elapsed_time=T_ANIM)
+    img = trace.make_renderer(scene.layout, width, height)(scene.arrays)
+    return np.asarray(jax.block_until_ready(img))
 
 
 def main():
@@ -143,63 +189,20 @@ def main():
     args = p.parse_args()
     W, H = args.width, args.height
 
-    import numpy as np
+    from gpuraytracer.utils.compile_cache import setup_compile_cache
 
-    ref_path = os.path.join(REPO, "out", f"parity_cpu_{W}x{H}.npy")
-    os.makedirs(os.path.dirname(ref_path), exist_ok=True)
-    if not os.path.exists(ref_path):
-        print(f"rendering CPU reference {W}x{H} ...", flush=True)
-        _render_cpu_subprocess(W, H, ref_path)
-    ref = np.load(ref_path)
-    # MULTI-directional chaos probe (VERDICT r3 next #4: the single
-    # +eps probe under-detects — a pixel can be stable along one
-    # direction yet knife-edge along another). The mask is the UNION of
-    # hypersensitive sets over three ulp-scale camera perturbations;
-    # each probe is one extra cached CPU render.
-    probes = [1e-6, -1e-6, (1e-6, -1e-6, 1e-6)]
-    sens = None
-    for i, eps in enumerate(probes):
-        eps_path = os.path.join(REPO, "out",
-                                f"parity_cpu_eps{i}_{W}x{H}.npy")
-        if not os.path.exists(eps_path):
-            print(f"rendering perturbed CPU reference {i} {W}x{H} ...",
-                  flush=True)
-            _render_cpu_subprocess(W, H, eps_path, cam_eps=eps)
-        m = sensitivity_mask(ref, np.load(eps_path))
-        sens = m if sens is None else (sens | m)
-
+    setup_compile_cache()
+    child = start_cpu_references(W, H)
     import jax
 
-    from gpuraytracer_tpu.kernels import megakernel
-    from gpuraytracer_tpu.models import builtin
-    from gpuraytracer_tpu.render import trace
-
-    backend = jax.default_backend()
-    scene = builtin.build_scene(aspect=W / H, elapsed_time=T_ANIM)
-
-    results = {"width": W, "height": H, "t": T_ANIM, "backend": backend}
-
-    # Path 1: default (Pallas scene kernel on TPU).
-    img = np.asarray(jax.jit(
-        lambda a: trace.render_frame(
-            type(scene)(scene.layout, a), W, H
-        )
-    )(scene.arrays))
-    results["pallas" if backend == "tpu" else backend] = compare(img, ref, sens)
-
-    if backend == "tpu":
-        # Path 2: pure-XLA wavefront (megakernel disabled).
-        os.environ["GPURT_DISABLE_PALLAS"] = "1"
-        try:
-            img2 = np.asarray(jax.jit(
-                lambda a: trace.render_frame(
-                    type(scene)(scene.layout, a), W, H
-                )
-            )(scene.arrays))
-            results["xla"] = compare(img2, ref, sens)
-        finally:
-            del os.environ["GPURT_DISABLE_PALLAS"]
-
+    img = render_current(W, H)
+    if child is not None and child.wait() != 0:
+        raise SystemExit(f"CPU reference render failed (rc={child.returncode})")
+    ref, sens = load_references(W, H)
+    dev = jax.devices()[0]
+    results = {"width": W, "height": H, "t": T_ANIM,
+               "device": {"platform": dev.platform, "kind": dev.device_kind},
+               route(): compare(img, ref, sens)}
     with open(args.out, "w") as f:
         json.dump(results, f, indent=2)
     print(json.dumps(results, indent=2))
